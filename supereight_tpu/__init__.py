@@ -1,6 +1,6 @@
-"""supereight-tpu: a TPU-native dense volumetric SLAM framework.
+"""supereight-tpu: a dense volumetric SLAM framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 emanuelev/supereight (octree-based KinectFusion-style SLAM, Vespa et al.
 RA-L 2018). The pointer octree is replaced by a Morton-keyed pool of dense
 8x8x8 voxel blocks plus a dense mip pyramid for coarse (internal-node)

@@ -5,7 +5,7 @@ Behavioral reference: se::functor::axis_aligned
 function to every voxel (and coarse octant value) inside an axis-aligned
 box, defaulting to the whole map.
 
-TPU shape: the per-block pass is a batched transform over [capacity, 512]
+Device shape: the per-block pass is a batched transform over [capacity, 512]
 with an in-box mask; the node pass maps over the dense mips. The functor
 receives (x, y, voxel_coords) and returns (x, y) — the data_handler
 get/set indirection (data_handler.hpp:44-81) collapses into pure array

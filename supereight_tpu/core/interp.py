@@ -12,7 +12,7 @@ stencil crosses (the crossmask switch, interp_gather.hpp:105-237) to save
 pointer descents. With dense slot addressing every corner is an O(1)
 gather, so no specialization is needed.
 
-TPU shape discipline: the ``*_c`` forms carry x/y/z as separate arrays
+Shape discipline: the ``*_c`` forms carry x/y/z as separate arrays
 and put the stencil dimension FIRST — tensors keep a large minor
 dimension, and every fetch is one flat 1-D gather. Stacked-[..., 3]
 wrappers are kept for the cold callers (volume facade, tests).

@@ -1,4 +1,4 @@
-"""TPU-native sparse voxel map: block pool + dense mip pyramid.
+"""Accelerator-resident sparse voxel map: block pool + dense mip pyramid.
 
 This is the from-scratch replacement for the reference's pointer octree
 (ref: se_core/include/se/octree.hpp, node.hpp). Design:
@@ -139,7 +139,7 @@ def lookup_slot_c(state: MapState, bx, by, bz):
     """Component-wise :func:`lookup_slot` (coords must be in range).
 
     One flat 1-D gather; hot paths carry x/y/z as separate arrays to
-    avoid TPU minor-dimension padding on [..., 3] stacks (see se3.py).
+    avoid padded [..., 3] stacks (see se3.py).
     """
     b = state.slot.shape[0]
     return state.slot.reshape(-1)[(bx * b + by) * b + bz]
@@ -279,8 +279,8 @@ def allocate_blocks(geom: MapGeometry, state: MapState,
     sort, dedup and per-level insertion (octree.hpp:792-856). Here dedup is
     free (a dense boolean grid); new cells are compacted with one top_k
     (ascending cell id, matching the reference's sorted-key insertion
-    order) so every scatter has only ALLOC_BUDGET updates — TPU scatters
-    cost per UPDATE (~6 ns), so 262k-update scatters were the old cost.
+    order) so every scatter has only ALLOC_BUDGET updates: a scatter
+    pays per UPDATE, so a 262k-update scatter was the old cost.
     Newly created blocks start active (ref: allocate_level sets
     active(true), octree.hpp:841).
 

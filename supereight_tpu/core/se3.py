@@ -9,8 +9,9 @@ import jax
 import jax.numpy as jnp
 
 # Pose algebra is tiny (3x3..6x6) but accuracy-critical: force true f32
-# matmuls instead of the TPU's default bf16 MXU passes. Throughput is
-# irrelevant at these shapes; tracking accuracy is not.
+# matmuls. At default precision a GPU may run f32 products in TF32
+# (~3 decimal digits). Throughput is irrelevant at these shapes;
+# tracking accuracy is not.
 _HIGHEST = jax.lax.Precision.HIGHEST
 
 
@@ -86,12 +87,12 @@ def rotate(T, p):
 # ---------------------------------------------------------------------------
 # Component-wise forms for hot per-pixel/per-voxel paths.
 #
-# TPU layouts pad an array's minor dimension to 128 lanes, so bulk math on
-# [..., 3]-stacked point clouds (and the tiny einsums above) runs with up
-# to ~40x wasted lanes and MXU padding. The hot pipeline stages therefore
-# carry x/y/z as three separate full-size arrays and apply transforms as
-# unrolled scalar-broadcast multiply-adds — exact f32 on the VPU (the
-# accuracy HIGHEST buys for the einsum path) and fully fusable.
+# Bulk math on [..., 3]-stacked point clouds runs on a tiny minor
+# dimension (strided loads, padded tiles, tiny einsums). The hot pipeline
+# stages therefore carry x/y/z as three separate full-size arrays and
+# apply transforms as unrolled scalar-broadcast multiply-adds — exact f32
+# elementwise math (the accuracy HIGHEST buys for the einsum path) that
+# XLA fuses into its neighbours.
 # ---------------------------------------------------------------------------
 
 def transform_c(T, x, y, z):

@@ -7,7 +7,8 @@ raycast (bfusion/rendering_impl.hpp:35-68).
 Payload: x = log-odds occupancy clamped to +/-1000, y = last update time.
 
 The reference memoizes the bspline CDF in a generated lookup table
-(bspline_lookup.cc); on TPU the closed form is a handful of VPU ops, so we
+(bspline_lookup.cc); on the device the closed form is a handful of
+elementwise ops, so we
 evaluate it directly — bitwise-identical to the exact (non-memoized)
 ``bspline`` (mapping_impl.hpp:94-106) rather than the quantized LUT.
 """

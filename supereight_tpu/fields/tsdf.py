@@ -32,7 +32,7 @@ def update(old_x, old_y, pos_cam, depth_sample, mu, valid,
     """Fuse one depth observation into TSDF voxels (ref sdf_update, 35-65).
 
     pos_cam: voxel position in the camera frame — a (x, y, z) tuple of
-    component arrays (TPU shape discipline, se3.transform_c).
+    component arrays (shape discipline, se3.transform_c).
     Returns (new_x, new_y, wrote) with the running weighted mean of the
     truncated SDF along the pixel ray; non-writes pass old values through.
 

@@ -2,7 +2,7 @@
 
 Behavioral reference: se_tools/scene2raw.cpp (ICL-NUIM scene -> .raw) and
 se_tools/oni2raw.cpp (OpenNI recording -> .raw; OpenNI hardware SDKs are
-not available in a TPU pod, so that path raises with guidance).
+not installed here, so that path raises with guidance).
 
 Usage:
   python -m supereight_tpu.io.convert scene2raw <scene_dir> <out.raw>
@@ -41,25 +41,30 @@ def oni2raw(*_args, **_kw):
 
 
 def synthetic2raw(out_path: str, frames: int = 64, scene: str = "orbit",
-                  noise_factor: float = 0.0):
+                  noise_factor: float = 0.0, loop_frames: int = None,
+                  size=(640, 480)):
     """Render a synthetic scene into a .raw sequence + TUM gt file.
 
     scene="orbit": the simple sphere-in-a-room test scene.
     scene="loop": the traj2-class benchmark — multi-object room
-    (occlusions, pillar, table, spheres), full closed-loop trajectory at
-    640x480, optional Kinect-model depth noise
-    (synthetic.loop_sequence).
+    (occlusions, pillar, table, spheres), full closed-loop trajectory,
+    optional Kinect-model depth noise (synthetic.loop_sequence).
+    ``loop_frames`` > ``frames`` writes only the first ``frames`` frames
+    of a ``loop_frames``-frame loop (its per-frame motion, fewer frames).
+    ``size`` is (width, height); the intrinsics are the traj2 camera
+    (481.2, 480, 320, 240) scaled to it.
     """
     from supereight_tpu.io import dataset, synthetic
-    k = (481.2, 480.0, 320.0, 240.0)
+    w, h = size
+    k = (481.2 * w / 640.0, 480.0 * h / 480.0, w / 2.0, h / 2.0)
     dim = 4.8
     if scene == "loop":
         depths, poses = synthetic.loop_sequence(
-            frames, k, width=640, height=480, dim=dim,
-            noise_factor=noise_factor)
+            loop_frames or frames, k, width=w, height=h, dim=dim,
+            noise_factor=noise_factor, n_render=frames)
     else:
         depths, poses = synthetic.orbit_sequence(
-            frames, k, width=640, height=480, radius=0.3 * dim,
+            frames, k, width=w, height=h, radius=0.3 * dim,
             center=(dim / 2,) * 3, sphere_radius=0.15 * dim,
             angle_span=0.6, room=((0.55,) * 3, (dim - 0.55,) * 3))
     dataset.write_raw(out_path, np.round(depths * 1000.0).astype(np.uint16))

@@ -9,7 +9,7 @@ cell with an unobserved corner (weight/timestamp y == 0,
 meshing.hpp:131-138), and interpolates zero crossings along cell edges.
 This is an offline export path (dump_mesh at end of run), so it runs
 vectorized on the host over the downloaded block pool rather than on the
-TPU.
+accelerator.
 """
 
 import numpy as np

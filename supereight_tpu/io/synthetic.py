@@ -4,7 +4,7 @@ The reference has no synthetic data path (its unit tests use analytic
 fields, its end-to-end tests use ICL-NUIM downloads). A closed-form
 scene (sphere + walls rendered by exact ray intersection) lets this repo
 gate the full pipeline — allocation, fusion, ICP, raycast — without any
-dataset, on CI or TPU, with exact ground-truth poses and depth.
+dataset, on CPU or GPU, with exact ground-truth poses and depth.
 """
 
 import numpy as np
@@ -183,13 +183,16 @@ def add_depth_noise(depth, noise_factor, seed=0):
 
 def loop_sequence(n_frames, k, width=640, height=480, dim=4.8,
                   radius=None, max_depth=4.0, noise_factor=0.0, seed=0,
-                  scene=None):
+                  scene=None, n_render=None):
     """Closed-loop trajectory through the multi-object room: the camera
     travels a full circle (ending where it started — a loop closure) at
     varying height, looking inward-ahead, so every wall and object is
     seen, occluded and re-seen. The traj2-class benchmark path.
 
-    Returns (depths [N,H,W] f32 meters, poses [N,4,4]).
+    ``n_render`` (default ``n_frames``) renders only that prefix of the
+    ``n_frames``-frame loop: the same per-frame motion, fewer frames.
+
+    Returns (depths [N,H,W] f32 meters, poses [N,4,4]), N = n_render.
     """
     c = dim / 2
     if radius is None:
@@ -199,7 +202,7 @@ def loop_sequence(n_frames, k, width=640, height=480, dim=4.8,
     depths, poses = [], []
     ease = min(20, n_frames // 8)
     total = 2.0 * np.pi
-    for i in range(n_frames):
+    for i in range(n_frames if n_render is None else n_render):
         u = i / max(n_frames - 1, 1)
         # quadratic ease-in over the first `ease` frames (bootstrap
         # window), then constant angular speed, closing the full loop

@@ -5,7 +5,7 @@ around each depth sample) and bfusion/alloc_impl.hpp (occupancy: march the
 whole camera->surface ray, allocating coarser octants further from the
 surface band).
 
-TPU design: the reference's atomic append-to-list + sort + unique
+Design: the reference's atomic append-to-list + sort + unique
 (octree.hpp:792-817) becomes a dense boolean scatter — every marched
 sample sets a bit in a [B,B,B] block-touched grid (dedup for free), and
 ``core.map.allocate_blocks`` turns the grid into pool slots with one
@@ -34,7 +34,7 @@ def _pixel_rays_c_sub(depth, pose, k, stride: int, x_offset=0):
 
     Mirrors the shared preamble of both allocators: worldVertex =
     pose * invK * ((x+.5)d, (y+.5)d, d), direction = normalize(cam - wv).
-    Component arrays out (TPU shape discipline, se3.transform_c).
+    Component arrays out (shape discipline, se3.transform_c).
     ``stride`` > 1 means ``depth`` is a [::stride, ::stride] subsample of
     the full frame; pixel coordinates are scaled to match.
     """
@@ -80,9 +80,8 @@ def tsdf_touched_mask(geom, depth, pose, k, mu: float, x_offset=0):
     of touched 8^3 *blocks* matters, sampling every 3 voxels cuts the
     scatter volume 3x while still hitting every block the ray spends >3
     voxels in (a corner-clipped block can be picked up a frame later —
-    scatters cost ~7 ns per UPDATE including dropped ones, so the sample
-    count is the stage's whole cost: 11 samples/ray measured 1.4 ms,
-    7 samples 0.9 ms). Pixels are likewise sampled 2x2: adjacent rays
+    a scatter pays per UPDATE including dropped ones, so the sample
+    count is the stage's whole cost). Pixels are likewise sampled 2x2: adjacent rays
     are a few mm apart at range — far below the 8-voxel block size — so
     the touched-block set is essentially unchanged."""
     b = geom.blocks_per_side
@@ -104,9 +103,8 @@ def tsdf_touched_mask(geom, depth, pose, k, mu: float, x_offset=0):
                                      oz + dz * t, valid))
     stacked = jnp.stack(ids)
     # consecutive band samples mostly stay in the same 8-voxel block
-    # (2-voxel steps): route duplicates to the drop bucket — TPU scatters
-    # cost per UPDATE (~7 ns), so deduping ~70% of the 200k+ updates is
-    # ~1 ms off the stage
+    # (2-voxel steps): route duplicates to the drop bucket — a scatter
+    # pays per UPDATE, and this drops ~70% of the 200k+ updates
     dup = stacked[1:] == stacked[:-1]
     stacked = jnp.concatenate(
         [stacked[:1],
@@ -153,7 +151,7 @@ def ofusion_touched_masks(geom, depth, pose, k, mu: float,
     Returns (block_touched [B,B,B], extra_levels tuple for
     ``refresh_mip_alloc`` with masks at levels 1 and 2). Pixels are
     sampled 2x2 like the TSDF allocator (touched-octant sets are
-    insensitive to sub-block ray spacing; TPU scatters cost per element).
+    insensitive to sub-block ray spacing; scatters cost per element).
     """
     band = 6.0 * mu
     if max_dist is None:
@@ -167,9 +165,8 @@ def ofusion_touched_masks(geom, depth, pose, k, mu: float,
         # per-level pixel stride: the fine band level samples 2x2 (see
         # tsdf_touched_mask); the COARSE free-space levels sample 8x8 —
         # a level-1/2 octant is 16-32 voxels across, so 2px-spaced rays
-        # land in the same octants thousands of times over, and TPU
-        # scatters cost per UPDATE (the level-2 touched scatter alone
-        # measured 3.7 ms in the fused frame). An octant grazed by no
+        # land in the same octants thousands of times over, and a
+        # scatter pays per UPDATE, duplicates included. An octant grazed by no
         # sparse ray this frame is re-touched the next while observed.
         stride = 2 if lvl == 0 else 8
         dsub = depth[::stride, ::stride]

@@ -5,15 +5,13 @@ Behavioral reference: se::functor::projective_functor
 active+in-frustum block list, update every voxel of those blocks with the
 field functor, then update the coarse node values.
 
-TPU design: the active list is a fixed-budget compaction (prefix sum over
+Design: the active list is a fixed-budget compaction (prefix sum over
 the slot mask, like the reference's parallel filter,
 algorithms/filter.hpp:61-107); the per-block 8x8x8 voxel update is a
-single batched program of shape [budget, 512] (maps onto the VPU). The
-stage cost is the per-voxel depth fetch, done as 8-pixel STRIP rows +
-a log2 lane-select tree: measured IN-PROGRAM (fusion context changes
-gather emitter choices) the strip form runs the full stage at ~10 ms
-vs ~33 ms for a flat element gather, even though standalone piece
-timings order the other way (tools/profile_integration.py).
+single batched program of shape [budget, 512]. The stage cost is the
+per-voxel depth fetch, done as 8-pixel STRIP rows + a log2
+lane-select tree (on the earlier accelerator the strip form beat a
+flat element gather ~3x in-program; unmeasured on the H100).
 The node pass is a dense update over
 each mip level gated by mip_alloc. Coordinates are carried as separate
 x/y/z arrays of shape [budget, 512] (large minor dim; no [..., 3]
@@ -34,7 +32,7 @@ from supereight_tpu.fields import ofusion as ofusion_field
 
 # local voxel offsets in brick-linear order (x + 8y + 64z)
 # numpy constants: creating jnp arrays at import would initialize the
-# default backend before the CLI can honor --platform (cli.py)
+# default backend as a side effect of importing the module
 _LIN = np.arange(BLOCK_VOXELS, dtype=np.int32)
 _LOCAL_X = _LIN % 8
 _LOCAL_Y = (_LIN // 8) % 8
@@ -126,12 +124,11 @@ def _sample_depth_patch(depth, px, py, valid):
     depth[int(pixel)], ref kfusion/mapping_impl.hpp:39-41).
 
     A block's 512 voxels project into a small pixel bbox, so instead of
-    one gathered row per voxel (budget*512 rows — the r2 integration
-    bottleneck at ~8 ms), fetch one 16-row x 32-px patch per block (32
-    rows) and select per voxel with a one-hot MXU contraction over x
-    plus a 16-wide lane tree over y — measured 2.1 ms vs 7.8 for the
-    per-voxel gather at the bench config, bit-exact where the patch
-    covers (tools/bench_depth_patch.py).
+    one gathered row per voxel (budget*512 rows), fetch one 16-row x
+    32-px patch per block (32 rows) and select per voxel with a one-hot
+    contraction over x plus a 16-wide lane tree over y — bit-exact where
+    the patch covers. Whether it still beats the per-voxel gather on the
+    H100 is unmeasured.
 
     Blocks whose bbox exceeds the patch (footprint > 24 px wide or
     > 15 px tall, i.e. closer than ~1.1 m at the bench intrinsics) use
@@ -237,7 +234,7 @@ def _sample_depth_bilinear(depth, px, py):
     0 if any neighbour is missing; nearest-neighbour fallback when the
     filtered value disagrees with any neighbour by > 5 cm.
 
-    TPU form: two 16-lane strip rows (y0, y1) supply all four corners.
+    Two 16-lane strip rows (y0, y1) supply all four corners.
     """
     h, w = depth.shape
     ws = (w + 7) // 8
@@ -305,7 +302,7 @@ def integrate(geom, state, field, depth, pose, k, mu, timestamp,
     reference's rate gates (DenseSLAMSystem.cpp:206-212), and masking
     the scatters instead of wrapping the call in ``lax.cond`` lets XLA
     alias the donated pool buffers (a cond branch forces a full
-    copy-on-write of the 150+ MB pool — measured ~4 ms/frame).
+    copy-on-write of the 150+ MB pool every frame).
     """
     t_cw = se3.inverse(pose)
     K = se3.camera_matrix(k)
@@ -383,9 +380,9 @@ def integrate(geom, state, field, depth, pose, k, mu, timestamp,
     # (core/map.refresh_mip_alloc), so it runs SPARSE: compact occupied
     # PARENTS (top_k over (B/2)^3), fetch each parent's 8 children as
     # ONE 8-wide row of a sibling-packed transpose of the dense mip
-    # (gathers cost per ROW — CLAUDE.md law 1), update, scatter the rows
-    # back. Cost scales with allocated parents instead of the whole
-    # grid (the dense form's 262k depth-gather rows were ~1 ms/frame).
+    # (gathers cost per ROW), update, scatter the rows back. Cost
+    # scales with allocated parents instead of the whole grid (the
+    # dense form gathered 262k depth rows every frame).
     # Higher levels stay dense ((B/2)^3 + ... cells are cheap).
     mip_skipped = jnp.int32(0)
     first_dense_level = 0

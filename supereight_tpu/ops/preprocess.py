@@ -1,7 +1,7 @@
 """Depth preprocessing kernels.
 
 Behavioral reference: se_denseslam/src/preprocessing.cpp. All kernels are
-batched image ops (VPU-shaped; XLA fuses the stencil arithmetic). The
+batched elementwise image ops (XLA fuses the stencil arithmetic). The
 OpenMP pixel loops become array programs over [H, W].
 """
 

@@ -5,10 +5,9 @@ driving the field-specific marchers kfusion/rendering_impl.hpp:34-74
 (TSDF sphere tracing with unknown-space skipping) and
 bfusion/rendering_impl.hpp:35-68 (occupancy constant-step march).
 
-TPU design (see CLAUDE.md "TPU perf laws": gathers are SERIAL, ~7 ns per
-gathered ROW from fast-zone (≤96 MB) tables; 8-16-wide rows amortize to
-~3.4-4.6 ns/row — so the design minimizes gathered rows and keeps every
-marching table under the ~96 MB fast-gather threshold):
+Design: the march is gather-bound, and a gather's cost follows the
+number of ROWS it fetches, so the tables pack what one probe needs into
+one narrow row and the march keeps the number of gathered rows low:
 
 * ``nav`` — one i32 [B^3] grid (1 MB): the pool slot for allocated block
   cells, minus the capped chebyshev block-distance for empty cells. ONE
@@ -33,17 +32,17 @@ marching table under the ~96 MB fast-gather threshold):
   is the exact gradient of the interpolant; the bf16 fallback for
   big tables adds <1 mm surface noise. The exact reference gradient
   remains in core/interp.py for the Volume API and tests.)
-* Rays march in lockstep, fully unrolled on TPU (rolled on CPU —
-  utils/loops.bounded_steps), in a compaction cascade: a short
+* Rays march in lockstep, each stage a bounded loop
+  (utils/loops.bounded_steps: unrolled on the GPU, elsewhere rolled
+  with early exit; see _march), in a compaction cascade: a short
   full-image pass, then unfinished rays compact into geometrically
-  smaller batches for longer budgets. Serial gathers cost rows-per-step,
-  so narrowing the live set is what early exit becomes here. Depth
+  smaller batches for longer budgets. Gathers cost rows-per-step, so
+  narrowing the live set is what per-ray early exit becomes here. Depth
   priming (prime_from_depth) starts rays one truncation band before the
   predicted surface, which is what makes the first pass short.
 """
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -181,14 +180,12 @@ def strips_dtype(n_bricks):
     the same precision (the frame-by-frame dist == single invariant,
     tests/test_dist.py).
 
-    f32 rows by default: removing the bf16 convert from the probe
-    gathers measured 32.7 -> 36.8 fps at the bench config (r4). Above
-    ~16k brick rows the f32 table (4 KB/block) would cross the ~96 MB
-    fast-gather zone (CLAUDE.md law 1), so big tables fall back to
-    bf16 (<1 mm surface noise, the r3 default). SE_TPU_STRIPS_BF16=1
-    forces bf16 everywhere (diagnostic).
+    f32 rows up to 16,384 bricks, bf16 above (<1 mm surface noise):
+    the bf16 table halves the gathered bytes of big maps. The threshold
+    was tuned on the earlier accelerator and is unmeasured on the H100;
+    what matters here is that both paths apply the same rule.
     """
-    if os.environ.get("SE_TPU_STRIPS_BF16") == "1" or n_bricks > 16384:
+    if n_bricks > 16384:
         return jnp.bfloat16
     return jnp.float32
 
@@ -204,17 +201,11 @@ def build_strips(geom, state, field, bucket=None):
     ``bucket`` (static, default capacity) bounds the table to the first
     ``bucket`` pool slots: the pool allocates slots monotonically
     (core/map.py bump allocation) so every live slot is < n_blocks, and
-    build cost scales with the table height — building over the full
-    36864-slot capacity costs ~6.7 ms/frame at 512^3 while an 8192
-    bucket costs ~1.5 ms. Callers must pass a bucket >= n_blocks (the
+    build cost scales with the table height (a 36864-slot capacity
+    table is 4.5x the rows of an 8192 bucket). Callers must pass a
+    bucket >= n_blocks (the
     fused step derives both this and the integration worklist budget
     from the live block count, parallel/step.integration_budget).
-
-    (An 8-lane two-table split was measured end to end in r3: it halves
-    nothing — the dominant cost is the layout copy XLA inserts to put
-    the gather operand in its preferred {0,1} layout, identical for both
-    forms — while doubling the trilinear stencil's fetches, 4.4 ms ->
-    9.3 ms. The interleaved single table wins.)
 
     Values are MARCH-encoded: weight-0 voxels carry the UNKNOWN
     sentinel (the reference's y == 0 check, kfusion raycast unknown
@@ -266,8 +257,8 @@ def _probe(geom, nav4, strips, unk, px, py, pz):
     The march probes the SAME [B^3, 4] neighbour-pair nav table the
     refinement stencil uses (lane 0 = the probed cell — see
     :func:`build_nav4`): one table build per raycast instead of two,
-    and a row gather costs the same as an element gather (gathers are
-    per-ROW, CLAUDE.md perf laws).
+    and a row gather cost the same as an element gather on the earlier
+    accelerator (gathers were per-ROW; unmeasured on the H100).
 
     Empty cells decode the packed nav payload (see :func:`build_nav`):
     the jump distance always, and — when present — the coarse free-space
@@ -383,9 +374,9 @@ def _interp_grad(geom, nav4, strips, unk, fill, px, py, pz):
 def _compact(n, budget, mask):
     """Fixed-budget worklist of ray indices where mask is set (-1 pads).
 
-    top_k compaction: scatters cost per UPDATE on TPU (~0.6 ms for a
-    full-image index set) while top_k over the same size is ~0.1 ms
-    (CLAUDE.md perf laws)."""
+    top_k compaction: a scatter pays per UPDATE, so a full-image index
+    scatter costs more than top_k over the same size did on the earlier
+    accelerator (unmeasured on the H100)."""
     ids = jnp.arange(n, dtype=jnp.int32)
     vals, _ = jax.lax.top_k(jnp.where(mask, n - ids, 0), budget)
     return jnp.where(vals > 0, n - vals, -1)
@@ -394,41 +385,31 @@ def _compact(n, budget, mask):
 # compaction cascades: (steps, live-fraction budget) per stage. Stage 0
 # runs on all rays; later stages on geometrically fewer stragglers, so
 # total gather rows stay bounded while long grazing rays still get
-# ~100+ steps (the reference's per-ray loop shape). Every stage is
-# UNROLLED: a rolled cond-skipped tail was measured at ~0.4 ms per step
-# even with zero live rays (rolled-loop gathers pay a flat slow-path
-# cost — CLAUDE.md perf laws), 25 ms for an always-skipped tail, while
-# an unrolled 48-step straggler stage at 1/48 budget costs ~1 ms.
-# Budgets sized from measured live-ray decay with 1.1-2x headroom; live
-# rays beyond a stage budget miss for the frame AND are counted in the
+# ~100+ steps (the reference's per-ray loop shape). Budgets are sized
+# from the measured live-ray decay with 1.1-2x headroom; live rays
+# beyond a stage budget miss for the frame AND are counted in the
 # ray_overflow stat, so an undersized budget is observable rather than
-# silent. Cost of a cascade = sum(budget_i * steps_i) probe rows
-# (substages are unrolled — every lane pays every step). TSDF decay
-# measured on the warm bench scene (tools/march_live_counts.py, r3):
-# primed live of 76.8k rays: 49% after 2 steps, 27% after 4, 13.5%
-# after 6, 2% after 12, 0.15% after 24, 0 by 48; cold: 60% after 6,
-# 31% after 12, 8.8% after 24, 0.2% by 32. OFusion 1-voxel-crawls the
-# surface-band blocks so it decays slower (measured cold: 39% after
-# 16, 6% after 32, 0 by ~56).
-# r4 rebalance (tools/march_scaling_r4.py): a full-width step costs
-# ~1.6 ms, so stage0 drops to 2 steps (49% of primed rays finish by 2 —
-# march_live_counts) and stage1 absorbs the difference at 0.50 budget;
-# stage budgets run closer to the measured live decay now that the
-# 4096-ray cond-skipped tail backstops misjudged frames.
+# silent. TSDF live-ray decay on the warm bench scene (a count, not a
+# time): primed, of 76.8k rays 49% live after 2 steps, 27% after 4,
+# 13.5% after 6, 2% after 12, 0.15% after 24, 0 by 48; cold: 60% after
+# 6, 31% after 12, 8.8% after 24, 0.2% by 32. OFusion 1-voxel-crawls
+# the surface-band blocks so it decays slower (cold: 39% after 16, 6%
+# after 32, 0 by ~56). The stage split was tuned for the earlier
+# accelerator's per-step costs and is unmeasured on the H100; the
+# two-tier tail in _march backstops misjudged frames.
 _CASCADE_PRIMED_TSDF = ((2, 1.0), (4, 0.50), (6, 0.15), (16, 1.0 / 24.0),
                         (36, 1.0 / 64.0))
 _CASCADE_COLD_TSDF = ((6, 1.0), (6, 0.70), (12, 0.36), (12, 0.12),
                       (28, 1.0 / 32.0))
-# r5 sigma-band stepping (see _march) collapsed the primed OF decay:
-# measured on the warm bench scene (tools/march_live_r5.py) 38% live
-# after 4 steps, 4.9% after 6, 2.5% after 8, 1.0% after 20, 0 by 59 —
-# vs the r4 1-voxel crawl's ~50% at 14. Budgets sized 1.3-3x over the
-# measured decay (cost 8.35 full-width step equivalents, was 13.67);
-# the 4096-ray cond-skipped tail still backstops unfamiliar scenes.
+# sigma-band stepping (see _march) collapsed the primed OF decay: on
+# the warm bench scene 38% live after 4 steps, 4.9% after 6, 2.5% after
+# 8, 1.0% after 20, 0 by 59 (the 1-voxel crawl had ~50% at 14). Budgets
+# sized 1.3-3x over that decay (8.35 full-width step equivalents); the
+# 4096-ray tail still backstops unfamiliar scenes.
 _CASCADE_PRIMED_OF = ((4, 1.0), (4, 1.0 / 2.0), (16, 1.0 / 12.0),
                       (36, 1.0 / 32.0))
 # cold decay stays slow (no priming: 42% at 16, 9.7% at 32, 1.7% at
-# 64) — budgets unchanged, still 1.2-2.5x over the r5 measurement.
+# 64); budgets 1.2-2.5x over it.
 _CASCADE_COLD_OF = ((16, 1.0), (16, 1.0 / 2.0), (32, 1.0 / 8.0),
                     (48, 1.0 / 24.0))
 
@@ -591,7 +572,7 @@ def _march(geom, state, field, origin, dx, dy, dz, tnear, tfar, mu,
                 # coarse-known free space (known & ~in_block) is
                 # value-constant per traversed cell, so it is jumped at
                 # block granularity instead of 1-voxel-stepped — the
-                # TPU form of the reference's constant-step march
+                # lockstep form of the reference's constant-step march
                 # through Octree::get coarse values
                 # (bfusion/rendering_impl.hpp:44-58).
                 fine = in_block
@@ -616,10 +597,22 @@ def _march(geom, state, field, origin, dx, dy, dz, tnear, tfar, mu,
 
         return one
 
+    # The cascade's stages unroll on the GPU. There a rolled while_loop
+    # reads its predicate back to the host on every step, and the march
+    # takes ~100 short steps a frame. Measured on an H100 (400 W limit),
+    # bench configuration, fused frame_step, 5 rounds in alternating
+    # order: 5.82 vs 7.75 ms/frame (TSDF) and 7.43 vs 9.53 (OFusion)
+    # against all-rolled, for 23-25 s more cold compile. The ICP loop
+    # stays rolled: unrolling it as well cost 2.8 / 2.0 ms more, since
+    # its early exit skips whole Gauss-Newton passes. The CPU stays
+    # rolled: unrolled, the frame step did not compile there in 15
+    # minutes even at toy size.
+    unroll = jax.default_backend() == "gpu"
+
     def stage(carry, dxx, dyy, dzz, tff, czz, steps):
         alive = lambda c: jnp.any(c[4] == 0)
         return bounded_steps(make_body(dxx, dyy, dzz, tff, czz), carry,
-                             steps, alive)
+                             steps, alive, unroll=unroll)
 
     t = tnear + 0.0
     ss = jnp.full((n,), largestep if is_tsdf else step)
@@ -642,14 +635,13 @@ def _march(geom, state, field, origin, dx, dy, dz, tnear, tfar, mu,
 
     # ---- packed substate rows --------------------------------------
     # Substages compact the live rays; gathering the per-ray
-    # state/direction arrays separately costs ~1 single-f32 row each per
-    # compacted ray (~60 ns total) plus 5+ scatters back — measured r4
-    # (tools/march_scaling_r4.py) this compaction overhead DWARFED the
-    # actual probe rows (stage1: 5.7 ms for 127k probes). Packing
+    # state/direction arrays separately costs one single-f32 row gather
+    # each per compacted ray plus 5+ scatters back, which outweighed the
+    # probe rows themselves on the earlier accelerator. Packing
     # (t, ss, f_t, f_tt, status, crawl | dx, dy, dz, tfar, zcos) into
     # one 16-wide f32 row makes compaction ONE row gather + ONE row
-    # scatter per ray (~5 ns each, CLAUDE.md law 1/2). Layout: mutable
-    # state in lanes 0-5, per-ray constants in lanes 6-10.
+    # scatter per ray. Layout: mutable state in lanes 0-5, per-ray
+    # constants in lanes 6-10.
     zc = jnp.ones((n,)) if zcos is None else zcos
 
     def pack_state(t, ss, f_t, f_tt, status, crawl):
@@ -688,9 +680,7 @@ def _march(geom, state, field, origin, dx, dy, dz, tnear, tfar, mu,
     # measured decay — compact into a small rolled-loop stage bounded
     # by max_steps instead of silently missing. The whole tail sits
     # behind ONE scalar lax.cond: on well-budgeted frames (the normal
-    # case, overflow == 0) it costs a single predicate; the rolled-loop
-    # gather penalty (~3.4x, CLAUDE.md law 3) only applies to the rare
-    # straggler batch itself.
+    # case, overflow == 0) it costs a single predicate.
     tail_steps = max(0, max_steps - done_budget)
 
     def make_tail(budget, steps):
@@ -707,8 +697,7 @@ def _march(geom, state, field, origin, dx, dy, dz, tnear, tfar, mu,
                              None if zcos is None else rows[:, 10])
             # single-body bounded while_loop: ONE probe body to compile
             # (an unrolled or chunk-unrolled tail ballooned XLA compile
-            # time); rolled-loop gathers cost ~3.4x (CLAUDE.md law 3)
-            # but the loop early-exits when every lane resolves
+            # time); the loop early-exits when every lane resolves
             out = jax.lax.while_loop(
                 lambda c: (c[0] < steps) & jnp.any(c[1][4] == 0),
                 lambda c: (c[0] + 1, body(c[1])),
@@ -722,16 +711,14 @@ def _march(geom, state, field, origin, dx, dy, dz, tnear, tfar, mu,
         return tail
 
     if tail_steps > 0:
-        # TWO-TIER straggler tail (r5). Tier A is sized for the grazing-
+        # TWO-TIER straggler tail. Tier A is sized for the grazing-
         # skim BURST: frames whose zero-depth pixels march COLD inside a
         # primed frame can put 8-28k rays into a grazing crawl along a
-        # slab (the r4 250-frame eval's f75-78 burst, 49.9k misses) —
-        # far beyond any narrow stage. It runs only when the live count
-        # is actually burst-sized (cond on count > 4096): a wide rolled
-        # loop costs ~0.2 ms per iteration, and the ~100-iteration
-        # crawl would cost ~25 ms if it ran on the few-hundred-straggler
-        # frames too (measured: a single always-on 32k tail was the
-        # missing ~25 ms of the fused OFusion frame). Tier B is the r4
+        # slab (the 250-frame loop eval's frames 75-78, 49.9k misses
+        # before this tail existed) — far beyond any narrow stage. It
+        # runs only when the live count is burst-sized (cond on count >
+        # 4096), because a wide loop bills every iteration at its full
+        # width and the crawl runs ~100 iterations. Tier B is the
         # narrow tail for the ordinary straggler population; it runs
         # whenever anyone is live. Budget overflow is still counted.
         live0 = jnp.sum((packed[:, 4] == 0).astype(jnp.int32))
@@ -776,12 +763,11 @@ def prime_from_depth(depth, k):
     raycast pose equals the depth frame's pose.
 
     The result sits behind an optimization_barrier: when this is traced
-    into the SAME program as the raycast (the fused frame step), XLA
-    fuses the producer into the priming/cascade consumers and the whole
-    raycast schedule degrades ~2x (r5 bisection: the identical raycast
-    measured 17.4 ms with prime as a program input or barrier'd, 36.3 ms
-    with it fused in — tools/slice_c_bisect.py). The barrier is an
-    identity, so single/dist parity is unaffected.
+    into the SAME program as the raycast (the fused frame step), XLA can
+    fuse the producer into the priming/cascade consumers and degrade the
+    raycast schedule (seen on the earlier accelerator; unmeasured on the
+    H100). The barrier is an identity, so single/dist parity is
+    unaffected.
     """
     h, w = depth.shape
     fx, fy, cx, cy = k[0], k[1], k[2], k[3]

@@ -6,29 +6,19 @@ point-to-plane residuals against the previous frame's raycast
 6x6 normal-equation solve + SE3 update (updatePoseKernel, 304-318) and
 divergence rollback (checkPoseKernel, 320-336).
 
-On TPU the residual pass is one fused elementwise+gather program per
-iteration, the reduction is a single jnp.sum (psum across devices in the
-sharded pipeline), and the tiny 6x6 solve runs per-step. The
+On the device the residual pass is one fused elementwise+gather program
+per iteration, the reduction is a single jnp.sum (psum across devices
+in the sharded pipeline), and the tiny 6x6 solve runs per-step. The
 coarse-to-fine iteration loop is a lax.while_loop with an early-exit
-convergence flag, so one compiled program per pyramid level.
+convergence flag, so one compiled loop body per pyramid level.
 """
 
 import functools
-import os
 from typing import Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-# Skip converged GN iterations with a scalar lax.cond instead of only
-# freezing their outputs (the reference BREAKS the level loop,
-# tracking.cpp:183-185). DEFAULT OFF: 19 cond-wrapped gather bodies
-# ballooned the remote TPU compile of the tracking program from ~40 s
-# to >10 min (measured r4, tools/compile_triage.py) — the runtime win
-# never got measured because the compile never finished in budget.
-# SE_TPU_TRACK_CONDSKIP=1 enables it for experiments.
-_CONDSKIP = os.environ.get("SE_TPU_TRACK_CONDSKIP", "0") == "1"
 
 from supereight_tpu.constants import (DIST_THRESHOLD, INVALID,
                                       NORMAL_THRESHOLD, TRACK_BAD_NORMAL,
@@ -69,7 +59,7 @@ def track_residuals(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
     ref_h, ref_w = ref_vertex.shape[:2]
 
     # component-wise throughout: [h, w] arrays, no [..., 3] stacking in
-    # the iterated path (TPU minor-dim padding, see se3.transform_c)
+    # the iterated path (tiny minor dims, see se3.transform_c)
     ivx, ivy, ivz = (in_vertex[..., 0], in_vertex[..., 1], in_vertex[..., 2])
     pvx, pvy, pvz = se3.transform_c(t_track, ivx, ivy, ivz)   # world frame
     ppx, ppy, ppz = se3.transform_c(view, pvx, pvy, pvz)
@@ -85,7 +75,8 @@ def track_residuals(in_vertex, in_normal, in_valid, ref_vertex, ref_normal,
     if ref_packed is None:
         ref_packed = pack_reference(ref_vertex, ref_normal, ref_valid)
     # one 32-byte-row gather fetches vertex+normal+valid together
-    # (gather cost is per ROW; 8 channels ride free — CLAUDE.md)
+    # (gather cost was per ROW on the earlier accelerator, so 8
+    # channels rode free; unmeasured on the H100)
     ref = ref_packed[flat].reshape(rx.shape + (8,))
     rvx, rvy, rvz = ref[..., 0], ref[..., 1], ref[..., 2]
     rnx, rny, rnz = ref[..., 3], ref[..., 4], ref[..., 5]
@@ -169,8 +160,8 @@ def _cholesky_solve6(A, b):
     """Unrolled 6x6 Cholesky solve.
 
     jax.scipy's generic blocked cho_factor lowers to dozens of tiny
-    sequential kernels — several ms of launch overhead per GN step on
-    TPU. Fully unrolled over scalars it fuses into one kernel. A
+    sequential kernels, each a launch per GN step. Fully unrolled over
+    scalars it fuses into one kernel. A
     non-SPD system yields sqrt(<0) = nan, caught by the caller's
     finite check (the reference's LLT-failure fallback).
     """
@@ -266,11 +257,13 @@ def track(pose, raycast_pose, k_full, pyr_vertex, pyr_normal, pyr_valid,
     if axis_name is not None:
         shard_idx = jax.lax.axis_index(axis_name)
 
-    # The GN iterations run as fixed trip counts with a `done` flag
-    # freezing converged state (bounded_steps: unrolled on TPU where
-    # in-loop gathers cost ~100x, rolled+early-exit on CPU). Freezing on
-    # `done` reproduces the reference's per-level early break exactly:
-    # once ||x|| < threshold, pose/reduction/result stop changing.
+    # The GN iterations run as a bounded rolled loop with a `done` flag
+    # freezing converged state (utils/loops.bounded_steps). Freezing on
+    # `done` and exiting once it is set reproduces the reference's
+    # per-level early break (tracking.cpp:183-185) exactly: once
+    # ||x|| < threshold, pose/reduction/result stop changing. In the
+    # sharded step `done` comes from the psum'd reduction, so every
+    # device leaves the loop at the same iteration.
     ref_packed = pack_reference(ref_vertex, ref_normal, ref_valid)
     result_fine = None
     for level in range(len(iterations) - 1, -1, -1):
@@ -297,18 +290,9 @@ def track(pose, raycast_pose, k_full, pyr_vertex, pyr_normal, pyr_valid,
             result = jnp.where(done, result, res)
             return (pose, reduction, result, done | converged)
 
-        if _CONDSKIP and axis_name is None:
-            # distributed mode keeps the unconditional form: a psum
-            # inside a cond branch would deadlock against devices that
-            # took the other branch
-            def one(c):
-                return jax.lax.cond(c[3], lambda cc: cc, body, c)
-        else:
-            one = body
-
         result0 = jnp.zeros(iv.shape[:2], jnp.int32)
         pose, reduction, result, _ = bounded_steps(
-            one, (pose, reduction, result0, jnp.bool_(False)),
+            body, (pose, reduction, result0, jnp.bool_(False)),
             iterations[level], lambda c: ~c[3])
 
         if level == 0:

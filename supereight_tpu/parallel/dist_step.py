@@ -16,7 +16,7 @@ Design (shard_map over a 1-D mesh of D devices):
 * **Images** are sharded by COLUMNS (widths stay divisible by 8 devices
   through the pyramid at the bench sizes). Per frame, one all-gather
   rebuilds the full depth and the previous raycast's reference maps
-  (~2 MB at 320x240 — image work is VPU-cheap so pyramids are computed
+  (~2 MB at 320x240 — image work is cheap elementwise math, so pyramids are computed
   replicated; the map, which is what outgrows a chip, never is).
 
 * **Tracking** computes residuals on each device's column slice against
@@ -459,10 +459,7 @@ def make_dist_step(mesh: Mesh, geom: MapGeometry, field, *, frame_size,
                    specs.valid, aux_spec),
         check_vma=False)
 
-    import os as _os
-    donate = () if _os.environ.get("SE_TPU_NO_DONATE") == "1" else ("state",)
-
-    @functools.partial(jax.jit, donate_argnames=donate)
+    @functools.partial(jax.jit, donate_argnames=("state",))
     def step(state: DistState, depth, k, frame, gt_pose=None):
         # donation lets the per-device pool buffers update in place
         # (callers consume the state exactly once per frame, like the

@@ -1,12 +1,15 @@
 """Multi-host runtime initialization.
 
-No reference equivalent (supereight is single-process). On a TPU pod
-slice each host runs the same program; ``jax.distributed.initialize``
-wires the hosts into one runtime so ``jax.devices()`` spans the slice and
-the shardings in parallel/sharding.py place collectives on ICI.
+No reference equivalent (supereight is single-process). With several
+processes (one per host, or one per GPU) each runs the same program;
+``jax.distributed.initialize`` wires them into one runtime so
+``jax.devices()`` spans every process's devices and the shardings in
+parallel/sharding.py become cross-process collectives. One process
+driving all GPUs of one host needs none of this.
 
-Typical launch (one process per host):
-  SE_TPU_COORDINATOR=host0:8476 SE_TPU_NUM_PROCESSES=4 \
+Typical launch (one process per host; nothing in the environment tells
+JAX of a cluster, so every process is given all three variables):
+  SE_COORDINATOR=host0:8476 SE_NUM_PROCESSES=4 SE_PROCESS_ID=<i> \
       python -m supereight_tpu.cli ...
 """
 
@@ -16,15 +19,16 @@ import jax
 
 
 def initialize_from_env() -> bool:
-    """Initialize jax.distributed from SE_TPU_* env vars; no-op when
-    unset (single host) or already initialized. Returns multi-host-ness.
+    """Initialize jax.distributed from the SE_COORDINATOR,
+    SE_NUM_PROCESSES and SE_PROCESS_ID env vars; no-op when
+    SE_COORDINATOR is unset (one process) or already initialized.
+    Returns multi-process-ness.
     """
-    coord = os.environ.get("SE_TPU_COORDINATOR")
+    coord = os.environ.get("SE_COORDINATOR")
     if not coord:
         return False
-    n = int(os.environ.get("SE_TPU_NUM_PROCESSES", "1"))
-    pid = int(os.environ.get("SE_TPU_PROCESS_ID",
-                             os.environ.get("TPU_WORKER_ID", "0")))
+    n = int(os.environ.get("SE_NUM_PROCESSES", "1"))
+    pid = int(os.environ.get("SE_PROCESS_ID", "0"))
     try:
         jax.distributed.initialize(coordinator_address=coord,
                                    num_processes=n, process_id=pid)

@@ -1,9 +1,9 @@
 """Multi-chip sharding of the SLAM frame step.
 
 No reference equivalent: supereight is single-process shared-memory
-OpenMP (SURVEY.md section 2.4). The TPU-native scaling design follows the
-standard JAX recipe — pick a mesh, annotate shardings, let XLA insert the
-collectives over ICI:
+OpenMP (SURVEY.md section 2.4). The scaling design follows the standard
+JAX recipe — pick a mesh, annotate shardings, let XLA insert the
+collectives (NCCL over NVLink between GPUs):
 
 * **Pixel-parallel** (the data-parallel axis): depth frames and all image
   maps are sharded by rows. Preprocess, per-pixel tracking residuals, and

@@ -5,20 +5,14 @@ structure; this module composes them into a single XLA program
 (preprocess -> track -> allocate -> integrate -> raycast) so a frame is
 one dispatch — the unit that gets sharded across a device mesh in
 parallel/sharding.py. The reference has no equivalent (its stages are
-synchronous CPU calls); this is the TPU-native execution shape.
+synchronous CPU calls); this is the accelerator's execution shape.
 """
 
 import functools
-import os
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-
-# In-place map updates (donation) save the 150+ MB copy-on-write per
-# frame; SE_TPU_NO_DONATE=1 opts out (diagnostic).
-_DONATE = () if os.environ.get("SE_TPU_NO_DONATE") == "1" else ("state",)
-
 from supereight_tpu import constants as C
 from supereight_tpu.core import se3
 from supereight_tpu.core.map import MapState
@@ -77,7 +71,7 @@ def integration_budget(geom, n_blocks: int) -> int:
                      "fuse_filtered"),
     # the 150+ MB map pool updates in place instead of copy-on-write
     # (callers consume the state exactly once per frame)
-    donate_argnames=_DONATE)
+    donate_argnames=("state",))
 def frame_step(geom, field, state: FrameState, depth_m, k, frame,
                gt_pose=None, *,
                frame_size, iterations,
@@ -122,7 +116,7 @@ def frame_step(geom, field, state: FrameState, depth_m, k, frame,
     # (DenseSLAMSystem.cpp:206-212) is applied by MASKING the map writes
     # (``when``) instead of lax.cond — a cond branch cannot alias the
     # donated pool buffers, so XLA inserted a full pool copy-on-write
-    # (~4 ms/frame at 512^3) on every integrated frame.
+    # on every integrated frame.
     do_integrate = (tracked | (frame <= 3)) \
         & (((frame % integration_rate) == 0) | (frame <= 3))
 
@@ -155,10 +149,9 @@ def frame_step(geom, field, state: FrameState, depth_m, k, frame,
     blocks_truncated = istats["blocks_truncated"]
 
     # ---- raycast ------------------------------------------------------
-    # no-cond here either: the march cascade is UNROLLED on TPU so the
-    # branch costs the same whether 0 or 76.8k rays are live — running
-    # it on the 3 bootstrap frames too (outputs masked below) is cheaper
-    # than a lax.cond blocking XLA's buffer aliasing for every frame.
+    # no-cond here either: running the raycast on the 3 bootstrap
+    # frames too (outputs masked below) avoids a lax.cond that would
+    # block XLA's buffer aliasing of the donated state on every frame.
     view = jnp.matmul(pose, se3.inverse_camera_matrix(k),
                       precision=jax.lax.Precision.HIGHEST)
     # the raycast pose IS this frame's pose, so the depth frame

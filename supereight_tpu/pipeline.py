@@ -174,8 +174,8 @@ class DenseSLAMSystem:
         # candidate octants, octree.hpp:792-817): an overflowing frame
         # doubles the bucket for subsequent frames — one recompile per
         # doubling; the overflowed cells are re-touched next frame.
-        # Polled every 8th frame: the scalar fetch is a remote-runtime
-        # round trip, and the bucket reaction can lag a few frames
+        # Polled every 8th frame: the scalar fetch is a device-to-host
+        # sync, and the bucket reaction can lag a few frames
         # (overflowed cells stay observed and re-touch).
         if frame % 8 == 0 and int(astats["alloc_overflow"]) > 0:
             b = self.geom.blocks_per_side
@@ -319,7 +319,9 @@ class DenseSLAMSystem:
             corr = km.correction_for_latest()
             self.trajectory_correction = corr
             if self._reanchor:
-                self.pose = jnp.asarray(corr, jnp.float32) @ self.pose
+                self.pose = jnp.matmul(
+                    jnp.asarray(corr, jnp.float32), self.pose,
+                    precision=jax.lax.Precision.HIGHEST)
             self._pending_ba = False
 
     # ------------------------------------------------------------------

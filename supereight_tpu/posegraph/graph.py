@@ -7,7 +7,7 @@ solves the Gauss-Newton normal equations over a sliding window:
 
   minimize  sum_e  || log( T_meas_e^-1 · T_i^-1 · T_j ) ||^2_{W_e}
 
-TPU shape: per-edge residuals and Jacobians are vmapped (parallel over
+Device shape: per-edge residuals and Jacobians are vmapped (parallel over
 edges — sharded over devices when the window grows), assembled into the
 6Nx6N normal matrix by scatter-add (the collective-reduction point in the
 multi-host setting), and solved by dense Cholesky — windows are small
@@ -22,6 +22,14 @@ import jax
 import jax.numpy as jnp
 
 from supereight_tpu.core import se3
+
+# Pose products in true f32: a GPU may run a default-precision f32
+# matmul in TF32 (~3 decimal digits), far too coarse for poses.
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HIGHEST)
 
 
 def rot_to_quat(R):
@@ -90,7 +98,7 @@ def se3_log(T):
     small = theta_sq < 1e-6
     th = jnp.where(small, 1.0, theta)
     W = se3.hat(w)
-    W2 = jnp.matmul(W, W, precision=jax.lax.Precision.HIGHEST)
+    W2 = _mm(W, W)
     half = 0.5 * th
     sin_half = jnp.sin(half)
     # b = (1 - cos th)/th^2 = 2 sin^2(th/2)/th^2 — the half-angle form
@@ -103,7 +111,8 @@ def se3_log(T):
     coef = jnp.where(small, 1.0 / 12.0 + theta_sq / 720.0,
                      (1.0 - a / (2.0 * b)) / (th * th))
     Vinv = eye - 0.5 * W + coef[..., None, None] * W2
-    v = jnp.einsum("...ij,...j->...i", Vinv, T[..., :3, 3])
+    v = jnp.einsum("...ij,...j->...i", Vinv, T[..., :3, 3],
+                   precision=_HIGHEST)
     return jnp.concatenate([v, w], axis=-1)
 
 
@@ -118,14 +127,14 @@ class PoseGraph(NamedTuple):
 
 def edge_residual(t_i, t_j, t_meas):
     """r = log(T_meas^-1 T_i^-1 T_j), [6]."""
-    rel = se3.inverse(t_i) @ t_j
-    return se3_log(se3.inverse(t_meas) @ rel)
+    rel = _mm(se3.inverse(t_i), t_j)
+    return se3_log(_mm(se3.inverse(t_meas), rel))
 
 
 def _residual_local(xi, xj, t_i, t_j, t_meas):
     """Residual as a function of local tangent perturbations (for AD)."""
-    ti = se3.exp(xi) @ t_i
-    tj = se3.exp(xj) @ t_j
+    ti = _mm(se3.exp(xi), t_i)
+    tj = _mm(se3.exp(xj), t_j)
     return edge_residual(ti, tj, t_meas)
 
 
@@ -205,7 +214,7 @@ def optimize(poses, graph: PoseGraph, num_nodes: int, iters: int = 10,
         dx = -jax.scipy.linalg.cho_solve(
             jax.scipy.linalg.cho_factor(H, lower=True), b)
         dx = (dx * free6).reshape(num_nodes, 6)
-        new_poses = jax.vmap(lambda d, T: se3.exp(d) @ T)(dx, poses)
+        new_poses = jax.vmap(lambda d, T: _mm(se3.exp(d), T))(dx, poses)
         return new_poses, jnp.linalg.norm(dx)
 
     poses, _ = jax.lax.scan(gn_step, poses, None, length=iters)

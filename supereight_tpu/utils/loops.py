@@ -1,80 +1,49 @@
-"""Backend-adaptive bounded loops for gather-bearing marching bodies.
+"""Bounded loops for gather-bearing marching bodies.
 
-On TPU, a gather inside a rolled ``lax.while_loop``/``fori_loop`` body
-falls off XLA's fast bulk-gather path and costs ~100x more than the same
-gather in straight-line code (measured ~4 ms vs ~5 us for a 307k-element
-fetch — tools/bench_loop2.py). The hot iterative kernels (raycast march,
-ICP Gauss-Newton) therefore UNROLL their fixed step budgets on TPU, with
-per-lane masks standing in for early exit.
-
-On CPU the trade inverts: gathers in rolled loops are fine, while
-compiling hundreds of unrolled gather steps takes minutes. Tests and the
-virtual-device sharding path run on CPU, so there the same body runs in
-a rolled ``while_loop`` with a global early-exit condition.
-
-Both forms compute identical results: the unrolled form executes extra
-no-op (fully masked) steps that the rolled form skips.
+The hot iterative kernels (raycast march cascade, ICP Gauss-Newton) run
+a fixed step budget with per-lane masks: ``body`` freezes lanes that are
+done, so extra steps are no-ops. :func:`bounded_steps` runs that budget
+as one rolled ``lax.while_loop`` with a global early exit (one compiled
+loop body, no work once every lane is done), or unrolled where the
+caller measured that to pay (the raycast march on the GPU).
 """
 
 import jax
 from jax import lax
 
 
-def bounded_steps(body, carry, steps: int, still_active):
+def bounded_steps(body, carry, steps: int, still_active, unroll=False):
     """Apply ``body`` up to ``steps`` times.
 
     body: carry -> carry, must be a fixed-point once ``still_active``
         is False (all lanes masked done).
     still_active: carry -> bool scalar, True while any lane needs work.
+    unroll: trace ``steps`` copies of ``body`` instead: no early exit
+        and no per-step loop predicate, for a program that grows with
+        ``steps``. Same result, since done lanes are fixed points.
     """
-    if jax.default_backend() == "cpu":
-        def cond(c):
-            i, cc = c
-            return (i < steps) & still_active(cc)
+    if unroll:
+        for _ in range(steps):
+            carry = body(carry)
+        return carry
 
-        def b(c):
-            i, cc = c
-            return (i + 1, body(cc))
+    def cond(c):
+        i, cc = c
+        return (i < steps) & still_active(cc)
 
-        return lax.while_loop(cond, b, (0, carry))[1]
+    def b(c):
+        i, cc = c
+        return (i + 1, body(cc))
 
-    for _ in range(steps):
-        carry = body(carry)
-    return carry
-
-
-def chunked_steps(body, carry, chunks: int, chunk_size: int, still_active):
-    """Long-tail variant: up to ``chunks * chunk_size`` applications.
-
-    On TPU: a rolled ``fori_loop`` over chunks, each chunk a
-    ``lax.cond`` that either runs ``chunk_size`` unrolled steps or
-    passes through — compile cost is one chunk body, early exit at
-    chunk granularity, and the in-rolled-loop gather penalty (~2x)
-    only applies to the (small) straggler batches this is used for.
-    On CPU: one rolled while_loop (compile-friendly, exact early exit).
-    """
-    if jax.default_backend() == "cpu":
-        return bounded_steps(body, carry, chunks * chunk_size,
-                             still_active)
-
-    def run_chunk(c):
-        for _ in range(chunk_size):
-            c = body(c)
-        return c
-
-    def one_chunk(_, c):
-        return lax.cond(still_active(c), run_chunk, lambda cc: cc, c)
-
-    return lax.fori_loop(0, chunks, one_chunk, carry)
+    return lax.while_loop(cond, b, (0, carry))[1]
 
 
 def lane_select(row, lane):
     """Select ``row[..., lane]`` per element with a log2 select tree.
 
     ``row`` is [..., W] (W a power of two), ``lane`` int32 [...] in
-    [0, W). A gather here would hit the TPU serial per-element path;
-    the tree is log2(W) vectorized selects on halving widths, and it
-    compiles far faster than a one-hot multiply-reduce.
+    [0, W). The tree is log2(W) vectorized selects on halving widths;
+    it compiles far faster than a one-hot multiply-reduce.
     """
     w = row.shape[-1]
     assert w & (w - 1) == 0

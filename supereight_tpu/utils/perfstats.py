@@ -2,7 +2,7 @@
 
 Behavioral reference: se_shared/perfstats.h (insertion-ordered named
 series with type tags and mean/min/max/sum summaries) and the TICK/TOCK
-kernel timing macros (se_shared/timings.h:7-15). The TPU analogue of a
+kernel timing macros (se_shared/timings.h:7-15). The device analogue of a
 kernel timer is a context manager that blocks on device results before
 reading the clock; jax.profiler traces cover the deeper view.
 """

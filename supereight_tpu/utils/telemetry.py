@@ -2,7 +2,7 @@
 
 Behavioral reference: the ODROID PowerMonitor
 (se_apps/src/PowerMonitor.cpp:14-56) — periodic hardware counters fed
-into PerfStats. The TPU analogues available in-process are the device
+into PerfStats. The analogues available in-process are the device
 memory statistics and allocation watermarks.
 """
 

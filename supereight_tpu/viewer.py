@@ -4,7 +4,7 @@ Behavioral reference: the GLUT/Qt front-ends' draw loop (drawthem,
 se_apps/include/draw.h:51-112; QtGUI.cpp) which blits RGB / depth /
 tracking-status / volume renders side by side. Without a display server
 this writes the same composite as an image file per frame — the
-practical TPU-pod equivalent of a live view.
+practical headless equivalent of a live view.
 """
 
 import numpy as np

@@ -4,7 +4,7 @@ equivalent of the reference's Qt/GLUT windows.
 Behavioral reference: se_apps/qt/QtGUI.cpp:84-258 + mainQt.cpp:201-313
 (live image view, pause/resume frame pump, reset via
 newDenseSLAMSystem, model/camera view toggle) and draw.h:51-112 (the
-2x2 composite). A TPU pod has no display server, so the "window" is a
+2x2 composite). A headless accelerator host has no display server, so the "window" is a
 tiny in-process HTTP server: browsers render a multipart
 ``x-mixed-replace`` JPEG stream natively, giving a live view with zero
 client software; controls are plain HTTP GETs the SLAM loop polls.

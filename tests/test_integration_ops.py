@@ -3,7 +3,7 @@
 Reference behavior: sdf_update/bfusion_update read depth[int(pixel)]
 (kfusion/mapping_impl.hpp:39-41, bfusion/mapping_impl.hpp:163-164);
 the patch fetch must reproduce that exactly wherever its per-block
-window covers (tools/bench_depth_patch.py measures the TPU win)."""
+window covers."""
 
 import jax.numpy as jnp
 import numpy as np

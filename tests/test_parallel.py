@@ -1,7 +1,7 @@
 """Multi-device sharding tests on the virtual 8-CPU mesh.
 
 The reference has nothing distributed (SURVEY.md 2.4); these tests gate
-the new TPU-native capability: the fused frame step compiles and runs
+the multi-device capability: the fused frame step compiles and runs
 with the pool sharded over slots and images sharded over rows, and
 produces the same trajectory as the single-device path.
 """

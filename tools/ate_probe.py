@@ -34,8 +34,7 @@ def main():
     ap.add_argument("--noise-weighted", action="store_true")
     ap.add_argument("--budget", type=int, default=0,
                     help="fixed integration budget (0 = adaptive "
-                         "doubling; fixed avoids mid-run recompiles on "
-                         "the remote TPU, ~60 s each)")
+                         "doubling; fixed avoids mid-run recompiles)")
     ap.add_argument("--alloc-budget", type=int, default=0,
                     help="fixed allocation budget (0 = adaptive)")
     ap.add_argument("--capacity", type=int, default=36864)
@@ -46,11 +45,7 @@ def main():
     ap.add_argument("--traj-out", default="",
                     help="save est+gt positions to this .npz")
     ap.add_argument("--size", type=int, default=512)
-    ap.add_argument("--platform", default="")
     args = ap.parse_args()
-    if args.platform:
-        import jax
-        jax.config.update("jax_platforms", args.platform)
 
     import jax
     import jax.numpy as jnp
@@ -100,8 +95,7 @@ def main():
             noise_weighted=args.noise_weighted)
         state, aux = fn(state, jnp.asarray(depths[i]), kj, jnp.int32(i))
         # ONE host transfer per frame: every scalar fetched separately
-        # costs a remote-runtime round trip (~0.5 s/frame of pure RTT
-        # measured in r5 — the probe was 4.8 s/frame host-bound)
+        # costs a device-to-host sync of its own
         P, aux = jax.device_get((state.pose, aux))
         nb = int(aux["n_blocks"])
         est.append(P[:3, 3])

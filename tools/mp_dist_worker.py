@@ -25,10 +25,10 @@ from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
 def main():
     pid, nprocs, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-    os.environ["SE_TPU_COORDINATOR"] = os.environ.get(
+    os.environ["SE_COORDINATOR"] = os.environ.get(
         "MP_COORD", "127.0.0.1:8899")
-    os.environ["SE_TPU_NUM_PROCESSES"] = str(nprocs)
-    os.environ["SE_TPU_PROCESS_ID"] = str(pid)
+    os.environ["SE_NUM_PROCESSES"] = str(nprocs)
+    os.environ["SE_PROCESS_ID"] = str(pid)
     from supereight_tpu.parallel import distributed
     assert distributed.initialize_from_env()
     assert jax.process_count() == nprocs

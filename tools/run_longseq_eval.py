@@ -1,4 +1,4 @@
-"""The traj2-class long-sequence evaluation (VERDICT r2 task 2).
+"""The traj2-class long-sequence evaluation.
 
 Generates the multi-object closed-loop synthetic benchmark at the
 reference's canonical traj2 configuration (640x480 input, -c 2, 4.8 m
@@ -6,6 +6,10 @@ volume, 512^3 voxels), runs it END TO END through the real harness
 (`python -m supereight_tpu.cli` + eval.ate), in ICP mode, for TSDF and
 OFusion — optionally with pose-graph BA and sensor noise — and prints a
 markdown results table (checked into EVAL.md).
+
+Each variant is a CLI child process that opens the GPU itself, one at a
+time; this parent imports nothing that touches JAX, so it never holds
+the card (a second JAX process on a card fails for want of memory).
 
 Mirrors the reference's out-of-repo pipeline:
 se_apps/scripts/_run.py:76-153 (spawn binary, parse log, score ATE) and
@@ -20,7 +24,8 @@ import subprocess
 import sys
 import tempfile
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 import numpy as np  # noqa: E402
 
@@ -34,7 +39,7 @@ def run_one(raw, gt, extra, log_file, max_frames):
            "--max-frames", str(max_frames), "--no-stage-sync",
            "--preset-budget", "36864"] + extra
     env = dict(os.environ)
-    env["PYTHONPATH"] = "/root/repo:" + env.get("PYTHONPATH", "")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(cmd, capture_output=True, text=True, env=env)
     ate = None
     fps = None

@@ -6,8 +6,10 @@ scene and reports, per mesh size:
   * halo blocks exchanged per frame (+ bytes),
   * collective bytes per step from the COMPILED HLO (all-gather /
     all-reduce / reduce-scatter / collective-permute output shapes),
-  * wall-clock per frame (CPU — indicative only; the compute:collective
-    ratio is the transferable signal, not absolute time).
+  * the tracked flag and drop counters.
+
+It measures counts and bytes, never time: a virtual CPU mesh says
+nothing about how long a step takes on GPUs.
 
 Writes the markdown table to stdout (checked into SHARDING.md).
 """
@@ -16,7 +18,6 @@ import functools
 import os
 import re
 import sys
-import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -93,13 +94,6 @@ def run(n_dev):
             jax.block_until_ready(state)
             donated = prev.map.data_x.is_deleted()
     jax.block_until_ready(state)
-    t0 = time.perf_counter()
-    reps = 3
-    for r in range(reps):
-        state, aux = step(state, jnp.asarray(depths[-1]), kj,
-                          jnp.int32(N_FRAMES + r), gt0)
-    jax.block_until_ready(state)
-    ms = (time.perf_counter() - t0) / reps * 1000
     per_dev = np.asarray(aux["n_blocks_dev"])
     return {
         "n_dev": n_dev,
@@ -110,7 +104,6 @@ def run(n_dev):
         "halo_mb": int(aux["halo_blocks"]) * 512 * 2 / 1e6,
         "coll_mb": cbytes / 1e6,
         "coll_ops": counts,
-        "ms_frame_cpu": ms,
         "pool_donated": donated,
         "tracked": bool(aux["tracked"]),
         "drops": (int(aux["alloc_overflow"]),
@@ -123,15 +116,15 @@ def run(n_dev):
 def main():
     rows = [run(n) for n in (1, 2, 4, 8)]
     print("| devices | blocks/dev (min-max, total) | halo blocks/frame "
-          "(MB) | collective MB/step (ops) | ms/frame (virtual CPU) | "
+          "(MB) | collective MB/step (ops) | "
           "tracked | drops (alloc,trunc,ray,halo) |")
-    print("|---|---|---|---|---|---|---|")
+    print("|---|---|---|---|---|---|")
     for r in rows:
         ops = ", ".join(f"{k}x{v}" for k, v in sorted(r["coll_ops"].items()))
         print(f"| {r['n_dev']} | {r['blocks_min']}-{r['blocks_max']} "
               f"(total {r['blocks_total']}) | {r['halo_blocks']} "
               f"({r['halo_mb']:.1f} MB) | {r['coll_mb']:.1f} ({ops}) | "
-              f"{r['ms_frame_cpu']:.0f} | {r['tracked']} | {r['drops']} |")
+              f"{r['tracked']} | {r['drops']} |")
     assert all(r["pool_donated"] for r in rows), \
         [r["pool_donated"] for r in rows]
     print("\npool buffers donated in place on every mesh size "
